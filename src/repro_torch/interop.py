@@ -1,0 +1,80 @@
+"""Carry the reference's state, as numpy, into the port.
+
+The miner has no weights; what crosses from the JAX package to the port is
+its data and state: an event stream, a built type index, candidate rows and
+their windows, the greedy ``(prev_end, prev_count)`` carries, and a miner
+config. Each function here takes numpy arrays (or anything ``np.asarray``
+reads) and returns the port's tensors or objects on ``device``, with the
+dtypes the port computes in. Nothing here imports the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from .core.events import EventStream
+from .core.mining import MinerConfig
+
+#: reference MinerConfig fields the port drops: settings of engines and
+#: back ends that are not ported (the reference's interpret-mode switch and
+#: the faithful engines' buffer sizes), whose values do not change what the
+#: ported engines compute
+_DROPPED = ("interpret", "cap_occ", "max_window")
+#: reference MinerConfig fields of paths the port does not have yet: a
+#: set value is rejected, the default is dropped
+_UNPORTED = {"mesh": None, "min_streams": None, "shard_axis": "data",
+             "n_shards": None, "halo": 256}
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    # a copy: arrays read from a jax array are not writable
+    return torch.tensor(np.asarray(x, dtype), device=device)
+
+
+def stream(types, times, n_types: int, device="cpu") -> EventStream:
+    """An event stream ``(types i32[n], times f32[n], n_types)``."""
+    return EventStream(
+        _tensor(types, np.int32, device),
+        _tensor(times, np.float32, device),
+        int(n_types))
+
+
+def type_index(table, counts, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """A built type index ``(table f32[n_types, cap], counts i32[n_types])``."""
+    return (_tensor(table, np.float32, device),
+            _tensor(counts, np.int32, device))
+
+
+def candidates(symbols, t_low, t_high, device="cpu"):
+    """Candidate rows and their windows: ``(symbols i32[B, N],
+    t_low f32[B, N-1], t_high f32[B, N-1])``."""
+    return (_tensor(symbols, np.int32, device),
+            _tensor(t_low, np.float32, device),
+            _tensor(t_high, np.float32, device))
+
+
+def times_by_sym(times, device="cpu") -> torch.Tensor:
+    """A gathered symbol-time table ``f32[..., N, cap]``."""
+    return _tensor(times, np.float32, device)
+
+
+def carries(prev_end, prev_count, device="cpu"):
+    """The greedy chain state ``(prev_end f32[...], prev_count i32[...])``."""
+    return (_tensor(prev_end, np.float32, device),
+            _tensor(prev_count, np.int32, device))
+
+
+def miner_config(fields: Dict[str, Any], device="cpu") -> MinerConfig:
+    """The port's MinerConfig from ``dataclasses.asdict`` of the
+    reference's, run on ``device``."""
+    fields = dict(fields)
+    for name in _DROPPED:
+        fields.pop(name, None)
+    for name, default in _UNPORTED.items():
+        value = fields.pop(name, default)
+        if value != default:
+            raise NotImplementedError(
+                f"MinerConfig.{name}={value!r}: that path is not ported yet")
+    return MinerConfig(**fields, device=device)

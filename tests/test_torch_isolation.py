@@ -1,0 +1,68 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the reference package, and the entry points run on the
+card unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import counting, mining
+from repro_torch.core.episodes import serial
+from repro_torch.core.events import EventStream
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_files_import_neither_jax_nor_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_importing_the_miner_loads_no_jax():
+    code = ("import sys, repro_torch.core.mining, repro_torch.interop, "
+            "repro_torch.data; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stream = EventStream(np.array([0, 1, 0], np.int32),
+                         np.array([0.0, 0.5, 1.0], np.float32), 2)
+    cfg = mining.MinerConfig(t_low=0.0, t_high=1.0, threshold=1)
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mining.mine_arrays(stream, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        counting.count_nonoverlapped(stream, serial([0, 1], 0.0, 1.0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    # asked for, the CPU runs
+    cfg.device = "cpu"
+    assert mining.mine_arrays(stream, cfg)[2].counts.tolist() == [1, 1, 1]
