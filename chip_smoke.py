@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; nothing is caught):
 
-1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. kernel vs plain: the CUDA count kernel (built from
-   ``src/repro_torch/kernels/csrc`` at first use) against its plain
-   PyTorch version on the card, bit for bit, on seeded batches, a 0.25 tie
-   grid, all-padding rows, nonzero carries, odd capacities and the real
-   level-2 batch of phase 3;
+1. the card's name and power limit, as ``nvidia-smi`` reports them; the
+   three CUDA kernels built from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all at once) and ``nvcc``'s register report;
+2. kernel vs plain: each kernel (``count_batch``, ``track_batch``,
+   ``track_level``) against its plain PyTorch version on the card, bit for
+   bit, on seeded batches, a 0.25 tie grid, all-padding rows, odd
+   capacities and the real level-2 batch of phase 3;
 3. the main path: level-wise mining of the paper's Table II dataset 3
    (64 neurons, 1000 s, about 1.43M spikes) to level 5 with
-   ``engine="dense_pallas_fused"``: one kernel launch per counted level,
+   ``engine="dense_pallas_fused"``: one count launch per counted level,
    embedded cascades recovered, a sample of mined counts equal to the FSM
    oracle, and the whole result equal to ``engine="dense"`` on the card;
-4. times: the kernel at the level-2 shape (CUDA events) beside its bound
+   then the other paths, each with the launch counts set to 0 just before
+   it and read just after:
+   - the same mine with ``engine="dense_pallas"``: one track_level launch
+     per tracking level (sum of level - 1), equal to the fused result;
+   - the tracking entry ``track_batch_dispatch("dense_pallas_fused")`` on
+     the level-2 batch: one track_batch launch, equal to ``track_dense``,
+     and its greedy counts equal to the count kernel's;
+   - ``mine_corpus`` of four Table II dataset 4 recordings (500 s each,
+     network seeds 0-3) with ``dense_pallas_fused``: one count launch per
+     counted level for the whole corpus, every stream equal to its own
+     ``mine_arrays``, the ">= 2 streams" aggregate; then the same corpus
+     with ``dense_pallas``, equal;
+4. times: each kernel at its level-2 shape (CUDA events) beside its bound
    and its plain version's time, the wall time of the mine, peak memory;
-5. one more (warm) mine on the host clock, and one under torch.profiler:
-   device time by kernel and the device's busy share.
+5. one more (warm) fused mine on the host clock, and one under
+   torch.profiler: device time by kernel and the device's busy share.
 
 Prints one JSON line of kernel measurements and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -37,6 +50,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.core import corpus, counting, tracking  # noqa: E402
 from repro_torch.core import events as events_lib  # noqa: E402
 from repro_torch.core import mining, plan, statemachine  # noqa: E402
 from repro_torch.core.episodes import Episode  # noqa: E402
@@ -57,6 +71,17 @@ MAX_LEVEL = 5
 # float32 kernel and the float64 FSM oracle decide every window edge alike
 T_HIGH = 2.0 ** -7
 PLAIN_CHUNK = 1024           # rows per pass of the plain version at level 2
+CORPUS_DATASET = 4           # paper Table II: 500 s of simulated time
+CORPUS_SEEDS = (0, 1, 2, 3)  # one recording per network seed
+#: the kernels, their wrappers and the TPU kernels they replace
+KERNELS = {
+    "count_batch": (episode_track.count_batch,
+                    "src/repro/kernels/episode_track.py:382"),
+    "track_batch": (episode_track.track_batch,
+                    "src/repro/kernels/episode_track.py:213"),
+    "track_level": (episode_track.track_level,
+                    "src/repro/kernels/episode_track.py:89"),
+}
 
 
 def log(msg: str) -> None:
@@ -107,19 +132,67 @@ def max_abs_err(want, got) -> float:
     return err
 
 
-def kernel_vs_plain(name, args, chunk=None) -> float:
-    got = episode_track.count_batch(*args)
+def kernel_vs_plain(kernel, name, args, chunk=None) -> float:
+    """One kernel against its plain version on the same inputs; raises
+    unless every output is equal, returns the largest difference."""
+    wrapper = KERNELS[kernel][0]
+    got = wrapper(*args)
     torch.cuda.synchronize()
-    want = episode_track.count_batch_ref(*args, chunk=chunk)
+    want = getattr(episode_track, f"{kernel}_ref")(*args, chunk=chunk)
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
     err = max_abs_err(want, got)
-    for label, w, g in zip(("counts", "end_out", "n_superset"), want, got):
+    for i, (w, g) in enumerate(zip(want, got)):
         if w.dtype != g.dtype or not torch.equal(w, g):
             bad = int((w != g).sum())
             raise AssertionError(
-                f"kernel != plain on {name}: {label} differs in {bad} rows")
-    log(f"  {name}: shape {tuple(args[0].shape)} kernel == plain "
-        f"(counts, end_out, n_superset), max_abs_err {err}")
+                f"{kernel} kernel != plain on {name}: output {i} differs in "
+                f"{bad} entries")
+    log(f"  {kernel} {name}: shape {tuple(args[0].shape)} kernel == plain, "
+        f"max_abs_err {err}")
     return err
+
+
+def level_rows(times, lo, hi, chunk=None):
+    """The last level transition of a ``[B, N, cap]`` batch as the
+    ``[R, cap]`` rows track_level takes, its latest starts from the plain
+    version of the levels before it."""
+    t0 = times[:, 0]
+    v = torch.where(torch.isfinite(t0), t0, float("-inf"))
+    n = times.shape[1]
+    for i in range(n - 2):
+        v = episode_track.track_level_ref(times[:, i], v, times[:, i + 1],
+                                          lo[:, i], hi[:, i], chunk=chunk)
+    return (times[:, n - 2].contiguous(), v.contiguous(),
+            times[:, n - 1].contiguous(), lo[:, n - 2].contiguous(),
+            hi[:, n - 2].contiguous())
+
+
+def all_kernels_vs_plain(name, batch, chunk=None):
+    """Phase 2 on one seeded batch: each kernel on its view of it."""
+    times, lo, hi = batch[:3]
+    return [kernel_vs_plain("count_batch", name, batch, chunk),
+            kernel_vs_plain("track_batch", name, (times, lo, hi), chunk),
+            kernel_vs_plain("track_level", name,
+                            level_rows(times, lo, hi, chunk), chunk)]
+
+
+def reset_launches() -> None:
+    for wrapper, _ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper.launches for name, (wrapper, _) in KERNELS.items()}
+
+
+def expect_launches(path: str, got: dict, want: dict) -> None:
+    """Raise unless this path launched exactly ``want`` of each kernel
+    (0 for a kernel it does not name)."""
+    full = {name: want.get(name, 0) for name in KERNELS}
+    log(f"  launches on {path}: {got} (expected {full})")
+    if got != full or not any(full.values()):
+        raise AssertionError(f"{path}: launches {got}, expected {full}")
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +246,17 @@ def time_cuda(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(in_tensors, out_bytes: int, ops: int):
+    """(bound_ms, bound_by, bytes): the least time for reading every input
+    once, writing every output once and doing ``ops`` f32 operations, at
+    the card's published peaks."""
+    moved = sum(x.numel() * x.element_size() for x in in_tensors) + out_bytes
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", moved)
 
 
 def trace_mine(stream, cfg, card) -> None:
@@ -231,7 +315,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
 
-    # --- phase 1: the card
+    # --- phase 1: the card, the kernels' build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -242,10 +326,12 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t_build = time.perf_counter()
-    _build.load("count_batch")
-    log(f"built count_batch.cu in {time.perf_counter() - t_build:.2f} s:")
-    for line in _build.BUILD_LOG.get("count_batch", "").splitlines():
-        log(f"  nvcc: {line}")
+    _build.build_all()
+    log(f"built {', '.join(_build.KERNELS)} in "
+        f"{time.perf_counter() - t_build:.2f} s (one nvcc each, in parallel):")
+    for name in _build.KERNELS:
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            log(f"  nvcc {name}: {line}")
 
     # --- data: paper Table II dataset 3
     net = spikes.NetworkConfig()
@@ -259,20 +345,26 @@ def main() -> int:
         f"{plan.capacity_class(cap)}); simulated in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # --- phase 2: kernel vs plain on the card
-    log("phase 2: kernel vs plain")
-    errs = [
-        kernel_vs_plain("seeded", seeded_batch(1, 64, 3, 1024)),
-        kernel_vs_plain("0.25 tie grid", seeded_batch(2, 48, 4, 512, grid=True)),
-        kernel_vs_plain("all-padding rows", seeded_batch(
-            3, 8, 3, 256, empty={(i, s) for i in range(8) for s in range(3)})),
-        kernel_vs_plain("cap 97", seeded_batch(4, 33, 2, 97, grid=True)),
-        kernel_vs_plain("cap 130", seeded_batch(5, 17, 5, 130, empty={(3, 2)})),
-        kernel_vs_plain("cap 257", seeded_batch(6, 9, 3, 257)),
-    ]
+    # --- phase 2: kernels vs plain on the card
+    log("phase 2: kernels vs plain")
+    errs = {name: [] for name in KERNELS}
+    for case, batch in [
+            ("seeded", seeded_batch(1, 64, 3, 1024)),
+            ("0.25 tie grid", seeded_batch(2, 48, 4, 512, grid=True)),
+            ("all-padding rows", seeded_batch(
+                3, 8, 3, 256, empty={(i, s) for i in range(8)
+                                     for s in range(3)})),
+            ("cap 97", seeded_batch(4, 33, 2, 97, grid=True)),
+            ("cap 130", seeded_batch(5, 17, 5, 130, empty={(3, 2)})),
+            ("cap 257", seeded_batch(6, 9, 3, 257))]:
+        for name, err in zip(KERNELS, all_kernels_vs_plain(case, batch)):
+            errs[name].append(err)
     l2 = level2_batch(stream, cap)
-    errs.append(kernel_vs_plain("level-2 batch of phase 3", l2,
-                                chunk=PLAIN_CHUNK))
+    times, lo, hi, pe, pc = l2
+    rows2 = level_rows(times, lo, hi)     # [4096, cap] rows of level 2
+    for name, err in zip(KERNELS, all_kernels_vs_plain(
+            "level-2 batch of phase 3", l2, chunk=PLAIN_CHUNK)):
+        errs[name].append(err)
 
     # --- phase 3: the main path
     noise_est = spikes.noise_pair_estimate(net, duration)
@@ -287,22 +379,19 @@ def main() -> int:
         f"cap {cap}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    episode_track.count_batch.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     fused = mining.mine_arrays(stream, cfg)
     torch.cuda.synchronize()
     mine_s = time.perf_counter() - t0
-    launches = episode_track.count_batch.launches
+    path_launches = {"count_batch": read_launches()}
     mine_peak = torch.cuda.max_memory_allocated()
     counted = [lv for lv in sorted(fused) if lv > 1 and fused[lv].n_candidates]
     for lv in sorted(fused):
         log(f"  level {lv}: {len(fused[lv].counts)} frequent of "
             f"{fused[lv].n_candidates} candidates")
-    log(f"  kernel launches {launches} for {len(counted)} counted levels")
-    if launches != len(counted) or not counted:
-        raise AssertionError(
-            f"expected one kernel launch per counted level ({len(counted)}), "
-            f"got {launches}")
+    expect_launches("the fused mine", path_launches["count_batch"],
+                    {"count_batch": len(counted)})
     if fused[2].n_candidates != net.n_neurons ** 2:
         raise AssertionError(f"level 2 held {fused[2].n_candidates} "
                              f"candidates, expected {net.n_neurons ** 2}")
@@ -341,40 +430,140 @@ def main() -> int:
     log(f"  engine='dense' on the card: same result, every level "
         f"({dense_s:.2f} s)")
 
-    # --- phase 4: times at the level-2 shape
-    times, lo, hi, pe, pc = l2
-    episode_track.count_batch(*l2)
+    # the dense_pallas engine: one track_level launch per tracking level
+    reset_launches()
+    t0 = time.perf_counter()
+    per_level = mining.mine_arrays(
+        stream, dataclasses.replace(cfg, engine="dense_pallas"))
     torch.cuda.synchronize()
-    kernel_ms = time_cuda(lambda: episode_track.count_batch(*l2), 10)
-    plain_ms = time_cuda(
-        lambda: episode_track.count_batch_ref(*l2, chunk=PLAIN_CHUNK), 1)
-    compacted = sum(   # intervals the greedy fold visits
-        int(track_dense(times[i:i + PLAIN_CHUNK], lo[i:i + PLAIN_CHUNK],
-                        hi[i:i + PLAIN_CHUNK]).valid.sum())
-        for i in range(0, times.shape[0], PLAIN_CHUNK))
-    in_bytes = sum(x.numel() * x.element_size() for x in l2)
-    out_bytes = times.shape[0] * (4 + 4 + 4)
-    ops = needed_operations(times, lo, hi, compacted)
-    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"phase 4 ({card}): count_batch at {tuple(times.shape)}: kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-        f"by {bound_by} ({in_bytes + out_bytes} bytes, {ops} operations), "
-        f"share {bound_ms / kernel_ms:.4f}")
+    per_level_s = time.perf_counter() - t0
+    path_launches["track_level"] = read_launches()
+    expect_launches("the dense_pallas mine", path_launches["track_level"],
+                    {"track_level": sum(lv - 1 for lv in counted)})
+    if not same_levels(fused, per_level):
+        raise AssertionError("dense_pallas result != dense_pallas_fused result")
+    log(f"  engine='dense_pallas': same result as the fused engine, every "
+        f"level ({per_level_s:.2f} s)")
+
+    # the tracking entry on the level-2 batch
+    reset_launches()
+    occ = tracking.track_batch_dispatch(
+        "dense_pallas_fused", times, lo, hi, tracking.EngineConfig())
+    torch.cuda.synchronize()
+    path_launches["track_batch"] = read_launches()
+    expect_launches("track_batch_dispatch('dense_pallas_fused')",
+                    path_launches["track_batch"], {"track_batch": 1})
+    want = [track_dense(times[i:i + PLAIN_CHUNK], lo[i:i + PLAIN_CHUNK],
+                        hi[i:i + PLAIN_CHUNK])
+            for i in range(0, times.shape[0], PLAIN_CHUNK)]
+    for name in occ._fields:
+        if not torch.equal(getattr(occ, name),
+                           torch.cat([getattr(w, name) for w in want])):
+            raise AssertionError(f"track_batch_dispatch {name} != track_dense")
+    end_out, greedy = counting._greedy_batch_state(occ, pe, pc, False)
+    k_counts, k_end, _ = episode_track.count_batch(*l2)
+    if not (torch.equal(greedy, k_counts) and torch.equal(end_out, k_end)):
+        raise AssertionError("greedy over track_batch_dispatch != count kernel")
+    log(f"  track_batch_dispatch on {tuple(times.shape)}: starts, ends, "
+        f"valid, n_superset, overflow == track_dense; greedy counts and "
+        f"ends == the count kernel's ({int(occ.valid.sum())} valid "
+        f"intervals)")
+
+    # corpus mining: four recordings of Table II dataset 4
+    c_duration = dict(spikes.PAPER_DATASETS)[CORPUS_DATASET] * SCALE
+    t0 = time.perf_counter()
+    recordings = [spikes.paper_dataset(
+        CORPUS_DATASET, scale=SCALE, cfg=dataclasses.replace(net, seed=k))
+        for k in CORPUS_SEEDS]
+    c_cap = max(int(np.bincount(r.types.numpy()).max()) for r in recordings)
+    c_cfg = dataclasses.replace(
+        cfg, threshold=max(5, int(0.35 * net.trigger_hz * c_duration)),
+        level_thresholds={2: int(
+            1.4 * spikes.noise_pair_estimate(net, c_duration))},
+        cap=c_cap)
+    log(f"corpus: {len(recordings)} recordings of dataset {CORPUS_DATASET} "
+        f"({c_duration} s, seeds {CORPUS_SEEDS}): "
+        f"{[r.n_events for r in recordings]} spikes, busiest {c_cap} (cap "
+        f"class {plan.capacity_class(c_cap)}), thresholds "
+        f"{c_cfg.level_thresholds} / {c_cfg.threshold}; simulated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_launches()
+    t0 = time.perf_counter()
+    c_res = corpus.mine_corpus(recordings, c_cfg, min_streams=2)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    corpus_launches = read_launches()
+    c_counted = sorted({lv for res in c_res.per_stream for lv in res
+                        if lv > 1 and res[lv].n_candidates})
+    expect_launches("mine_corpus (dense_pallas_fused)", corpus_launches,
+                    {"count_batch": len(c_counted)})
+    for k, rec in enumerate(recordings):
+        if not same_levels(c_res.per_stream[k], mining.mine_arrays(rec, c_cfg)):
+            raise AssertionError(f"mine_corpus stream {k} != its mine_arrays")
+        log(f"  stream {k}: == mine_arrays; levels " + ", ".join(
+            f"{lv}: {len(la.counts)}/{la.n_candidates}"
+            for lv, la in sorted(c_res.per_stream[k].items())))
+    log(f"  mine_corpus {corpus_s:.3f} s wall; every stream == its own "
+        f"mine_arrays; >= 2 streams aggregate: " + ", ".join(
+            f"level {lv}: {len(la.counts)} of {la.n_candidates}"
+            for lv, la in sorted(c_res.corpus.items())))
+    for lv, la in sorted(c_res.corpus.items()):
+        if lv > 2 and len(la.counts):
+            log(f"    level {lv}: e.g. {la.symbols[:2].tolist()} in "
+                f"{la.counts[:2].tolist()} streams")
+    reset_launches()
+    t0 = time.perf_counter()
+    c_per_level = corpus.mine_corpus(
+        recordings, dataclasses.replace(c_cfg, engine="dense_pallas"),
+        min_streams=2)
+    torch.cuda.synchronize()
+    expect_launches("mine_corpus (dense_pallas)", read_launches(),
+                    {"track_level": sum(lv - 1 for lv in c_counted)})
+    if not (all(same_levels(a, b) for a, b in zip(c_res.per_stream,
+                                                  c_per_level.per_stream))
+            and same_levels(c_res.corpus, c_per_level.corpus)):
+        raise AssertionError("mine_corpus dense_pallas != dense_pallas_fused")
+    log(f"  mine_corpus with engine='dense_pallas': same result "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # --- phase 4: times at the level-2 shape
+    ops = needed_operations(times, lo, hi, 0)   # tracking of one level
+    compacted = int(occ.valid.sum())            # intervals the fold visits
+    b, n, c = times.shape
+    work = {
+        "count_batch": (l2, (l2, PLAIN_CHUNK), b * 12, ops + compacted),
+        "track_batch": ((times, lo, hi), ((times, lo, hi), PLAIN_CHUNK),
+                        b * c * 4 + b * 4, ops),
+        "track_level": (rows2, (rows2, PLAIN_CHUNK), b * c * 4, ops),
+    }
+    entries = []
+    for name, (args, (plain_args, chunk), out_bytes, n_ops) in work.items():
+        wrapper, replaces = KERNELS[name]
+        plain = getattr(episode_track, f"{name}_ref")
+        wrapper(*args)
+        torch.cuda.synchronize()
+        kernel_ms = time_cuda(lambda: wrapper(*args), 10)
+        plain_ms = time_cuda(lambda: plain(*plain_args, chunk=chunk), 1)
+        bound_ms, bound_by, moved = bound(args, out_bytes, n_ops)
+        launches = path_launches[name][name]
+        log(f"phase 4 ({card}): {name} at {tuple(args[0].shape)}: kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({moved} bytes, {n_ops} "
+            f"operations), share {bound_ms / kernel_ms:.4f}; {launches} "
+            f"launches on its path")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(errs[name]), "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
     log(f"  mine (fused) {mine_s:.3f} s wall, peak "
         f"{mine_peak / 2**30:.3f} GiB allocated; whole run peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     trace_mine(stream, cfg, card)
 
-    log(json.dumps({"kernels": [{
-        "name": "count_batch", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/count_batch.cu",
-        "replaces": "src/repro/kernels/episode_track.py:382",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,14 +10,19 @@ registry in tracking.py:
                                 ONE CUDA kernel launch per candidate batch
                                 (kernels/episode_track.py)
 
-Both return identical counts and carried chain state.
+  engine="dense_pallas"         one CUDA kernel launch per tracking level
+                                for the whole batch, then the greedy fold
+
+All return identical counts and carried chain state.
 :func:`count_batch_dispatch` is the one counting dispatch: engines exposing
 ``count_batch`` run the whole pipeline natively, every other engine tracks
-and folds the greedy here.
+and folds the greedy here. :func:`count_corpus_indexed` counts one
+candidate batch against a corpus of streams.
 
 Entry points that take host data (:func:`count_nonoverlapped`,
-:func:`count_batch_indexed`) run on ``device``, the card by default; the
-tensor-level functions run on their tensors' device.
+:func:`count_batch_indexed`, :func:`count_corpus_indexed`) run on
+``device``, the card by default; the tensor-level functions run on their
+tensors' device.
 """
 from __future__ import annotations
 
@@ -193,6 +198,36 @@ def _build_count_indexed(p: plan_mod.MiningPlan):
 plan_mod.register_fn("count_indexed", _build_count_indexed)
 
 
+def _build_count_corpus(p: plan_mod.MiningPlan):
+    def fn(tables, counts, build_cap, symbols, t_low, t_high, thresholds):
+        s, b = tables.shape[0], symbols.shape[0]
+        index_overflow = (counts > build_cap).any(dim=-1)          # [S]
+        eng = tracking.get_engine(p.engine)
+        cfg = _engine_cfg(p)
+        gathered = tables[:, symbols.long()]                       # [S, B, N, cap]
+        if getattr(eng, "count_batch", None) is not None:
+            # corpus-native counting: (stream, episode) rows fold into ONE
+            # single-launch count pipeline call, fresh carries
+            corpus_counts, _, n_superset, overflow = count_batch_dispatch(
+                eng, gathered, t_low.expand(s, -1, -1),
+                t_high.expand(s, -1, -1), *_fresh_carries(s * b, tables.device),
+                cfg, parallel_schedule=p.parallel_schedule)
+        else:
+            occ = tracking.track_corpus_dispatch(eng, gathered, t_low, t_high,
+                                                 cfg)
+            fresh_end, fresh_count = _fresh_carries(1, tables.device)
+            _, corpus_counts = _greedy_batch_state(
+                occ, fresh_end[0], fresh_count[0], p.parallel_schedule)
+            n_superset, overflow = occ.n_superset, occ.overflow
+        keep = corpus_counts >= thresholds[:, None]
+        return (corpus_counts, keep, n_superset,
+                overflow | index_overflow[:, None])
+    return fn
+
+
+plan_mod.register_fn("count_corpus", _build_count_corpus)
+
+
 def count_batch_indexed(
     table,                  # f32[n_types, cap] per-type time index
     counts,                 # i32[n_types] true per-type totals (pre-clip)
@@ -241,3 +276,74 @@ def count_batch_indexed(
         int(build_cap), plan_mod.pad_rows(symbols, p.batch),
         plan_mod.pad_rows(t_low, p.batch), plan_mod.pad_rows(t_high, p.batch))
     return tuple(a[:b] for a in out)
+
+
+def count_corpus_indexed(
+    tables,                 # f32[S, n_types, cap] per-stream type indexes
+    counts,                 # i32[S, n_types] true per-type totals (pre-clip)
+    symbols,                # i32[B, N] shared candidate batch
+    t_low,                  # f32[B, N-1]
+    t_high,                 # f32[B, N-1]
+    thresholds,             # i32[S] per-stream frequency thresholds
+    *,
+    engine: str = "dense",
+    parallel_schedule: bool = False,
+    block_next: Optional[int] = None,
+    block_prev: Optional[int] = None,
+    window_tiles: Optional[int] = None,
+    build_cap: Optional[int] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Count one candidate batch against a whole corpus of streams at once.
+
+    The stream axis of the pre-built batched type index
+    (:func:`events.type_index_batch`) folds into the candidate-batch
+    dimension: with ``dense_pallas_fused`` the whole ``S x B`` grid is ONE
+    count kernel launch, with ``dense_pallas`` one track_level launch per
+    tracking level. Every stream's keep mask is computed on ``device``
+    against its own threshold, so the corpus miner fetches counts, keep
+    and overflow for all streams in one host sync per level.
+
+    Adapter over the MiningPlan spine: the stream axis rounds to its own
+    capacity class (padded streams are all-+inf, count nothing and are
+    sliced away). Returns ``(counts i32[S, B], keep bool[S, B],
+    n_superset i32[S, B], overflow bool[S, B])``; each row is what
+    :func:`count_batch_indexed` returns for that stream alone.
+    """
+    dev = resolve_device(device)
+    tables = torch.as_tensor(tables, dtype=torch.float32, device=dev)
+    counts = torch.as_tensor(counts, dtype=torch.int32, device=dev)
+    symbols = torch.as_tensor(symbols, dtype=torch.int32, device=dev)
+    t_low = torch.as_tensor(t_low, dtype=torch.float32, device=dev)
+    t_high = torch.as_tensor(t_high, dtype=torch.float32, device=dev)
+    thresholds = torch.as_tensor(thresholds, dtype=torch.int32, device=dev)
+    s = tables.shape[0]
+    if tuple(thresholds.shape) != (s,):
+        raise ValueError(f"thresholds must have shape ({s},), got "
+                         f"{tuple(thresholds.shape)}")
+    if build_cap is None:
+        build_cap = tables.shape[2]
+    b, n = symbols.shape
+    if b == 0:
+        zi = torch.zeros((s, 0), dtype=torch.int32, device=dev)
+        zb = torch.zeros((s, 0), dtype=torch.bool, device=dev)
+        return zi, zb, zi, zb
+    p = plan_mod.plan_for(
+        "count_corpus", level=n, n_types=tables.shape[1], cap=tables.shape[2],
+        batch=b, streams=s, engine=engine,
+        parallel_schedule=parallel_schedule, block_next=block_next,
+        block_prev=block_prev, window_tiles=window_tiles)
+    tables = plan_mod.pad_width(tables, p.cap, float("inf"))
+    if p.streams != s:
+        # padded streams are empty (+inf index, zero counts and thresholds)
+        extra = p.streams - s
+        tables = torch.cat([tables, tables.new_full(
+            (extra,) + tuple(tables.shape[1:]), float("inf"))])
+        counts = torch.cat([counts, counts.new_zeros(
+            (extra,) + tuple(counts.shape[1:]))])
+        thresholds = torch.cat([thresholds, thresholds.new_zeros(extra)])
+    out = plan_mod.dispatch(
+        p, tables, counts, int(build_cap), plan_mod.pad_rows(symbols, p.batch),
+        plan_mod.pad_rows(t_low, p.batch), plan_mod.pad_rows(t_high, p.batch),
+        thresholds)
+    return tuple(a[:s, :b] for a in out)

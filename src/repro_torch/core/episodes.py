@@ -12,6 +12,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Episode:
@@ -38,9 +40,11 @@ class Episode:
     def n(self) -> int:
         return len(self.symbols)
 
-    def as_arrays(self, device="cpu"):
-        """``(symbols i32[N], t_low f32[N-1], t_high f32[N-1])``. The windows
-        are cast to float32: every engine compares in float32."""
+    def as_arrays(self, device="cuda"):
+        """``(symbols i32[N], t_low f32[N-1], t_high f32[N-1])`` on
+        ``device`` (the card unless the caller asks for the CPU). The
+        windows are cast to float32: every engine compares in float32."""
+        device = resolve_device(device)
         return (
             torch.tensor(self.symbols, dtype=torch.int32, device=device),
             torch.tensor(self.t_low, dtype=torch.float32, device=device),
@@ -74,11 +78,13 @@ def episodes_from_rows(rows, t_low: float, t_high: float) -> "list[Episode]":
     return [Episode(tuple(int(s) for s in row), lo, hi) for row in rows]
 
 
-def episode_batch(episodes: Sequence[Episode], device="cpu"):
-    """Pack same-length episodes into dense tensors for batched counting.
+def episode_batch(episodes: Sequence[Episode], device="cuda"):
+    """Pack same-length episodes into dense tensors for batched counting,
+    on ``device`` (the card unless the caller asks for the CPU).
 
     Returns (symbols [B,N] i32, t_low [B,N-1] f32, t_high [B,N-1] f32).
     """
+    device = resolve_device(device)
     ns = {e.n for e in episodes}
     if len(ns) != 1:
         raise ValueError("episode_batch requires equal-length episodes")

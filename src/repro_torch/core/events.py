@@ -92,23 +92,53 @@ def type_index(
     convention, -1) contribute nothing. They are masked out before any
     scatter: torch's advanced indexing raises on an out-of-range index
     (a device assert on CUDA) and wraps a negative one into the last row.
+    This is :func:`type_index_batch` of a one-stream corpus.
+    """
+    tables, counts = type_index_batch(
+        _as_tensor(types, torch.int32)[None],
+        _as_tensor(times, torch.float32)[None], n_types, cap)
+    return tables[0], counts[0]
+
+
+def type_index_batch(
+    types: torch.Tensor, times: torch.Tensor, n_types: int, cap: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-stream type indexes for a padded corpus, in one batched scatter.
+
+    Args:
+      types: int32[S, L] per-stream event types, ``-1`` padding (dropped,
+        never scattered into a real row, as in :func:`type_index`).
+      times: float32[S, L] per-stream times (time-sorted), ``+inf`` padding.
+
+    Returns ``(tables f32[S, n_types, cap], counts i32[S, n_types])``: row
+    ``s`` is :func:`type_index` of stream ``s``. Each (stream, type) pair is
+    one group of a single flat ranking, so all streams are ranked and
+    scattered at once.
     """
     if cap < 1:
         raise ValueError(f"type index cap must be >= 1, got {cap}")
     types = _as_tensor(types, torch.int32)
     times = _as_tensor(times, torch.float32).to(types.device)
+    n_streams = types.shape[0]
     in_range = (types >= 0) & (types < n_types)
-    # out-of-range types share one sentinel group past the alphabet, as the
-    # reference's remap to n_types does, so real types' ranks are unchanged
+    # out-of-range types share one sentinel group per stream, past the
+    # alphabet (as the reference's remap to n_types does), so real types'
+    # ranks are unchanged
     grouped = torch.where(in_range, types, torch.full_like(types, n_types))
-    counts = torch.bincount(grouped[in_range].long(),
-                            minlength=n_types).to(torch.int32)
-    rank = _rank_within_type(grouped, n_types)
-    keep = in_range & (rank < cap)
-    table = torch.full((n_types, cap), INF, dtype=torch.float32,
-                       device=types.device)
-    table[grouped[keep].long(), rank[keep].long()] = times[keep]
-    return table, counts
+    stream = torch.arange(n_streams, dtype=torch.int32,
+                          device=types.device)[:, None].expand_as(types)
+    key = (stream * (n_types + 1) + grouped).reshape(-1)
+    keep_in = in_range.reshape(-1)
+    counts = torch.bincount(key[keep_in].long(),
+                            minlength=n_streams * (n_types + 1))
+    counts = counts.reshape(n_streams, n_types + 1)[:, :n_types]
+    rank = _rank_within_type(key, n_streams * (n_types + 1))
+    keep = keep_in & (rank < cap)
+    tables = torch.full((n_streams, n_types, cap), INF, dtype=torch.float32,
+                        device=types.device)
+    tables[stream.reshape(-1)[keep].long(), grouped.reshape(-1)[keep].long(),
+           rank[keep].long()] = times.reshape(-1)[keep]
+    return tables, counts.to(torch.int32)
 
 
 def _rank_within_type(types: torch.Tensor, n_types: int) -> torch.Tensor:

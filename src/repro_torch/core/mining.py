@@ -15,7 +15,8 @@ is a vectorized numpy group-by over symbol rows
 ``counting.count_batch_indexed``, and pruning runs on the device: each
 level pays exactly one host transfer, which brings counts, keep mask and
 overflow back together. With ``engine="dense_pallas_fused"`` each level is
-ONE kernel launch.
+ONE kernel launch; with ``engine="dense_pallas"`` it is one launch per
+tracking level. ``core/corpus.py`` runs the same loop for many streams.
 """
 from __future__ import annotations
 
@@ -54,6 +55,9 @@ class MinerConfig:
     window_tiles: Optional[int] = None
     device: str = "cuda"         # "cpu" only when the caller asks for it
     mesh: Optional[object] = None  # sharded mining: not in the port yet
+    # corpus mining (core/corpus.py): default of the ">= m streams"
+    # aggregate; None = per-stream results only
+    min_streams: Optional[int] = None
 
 
 @dataclasses.dataclass

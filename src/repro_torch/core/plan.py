@@ -49,6 +49,7 @@ class MiningPlan:
     n_types: int             # alphabet size
     cap: int                 # per-type table width, class-rounded
     batch: int               # candidate rows, class-rounded
+    streams: int = 0         # corpus stream rows, class-rounded (0 = none)
     engine: str = "dense"
     parallel_schedule: bool = False
     block_next: int = 256
@@ -78,6 +79,7 @@ def plan_for(
     n_types: int,
     cap: int,
     batch: int,
+    streams: int = 0,
     engine: str = "dense",
     parallel_schedule: bool = False,
     block_next: Optional[int] = None,
@@ -91,7 +93,8 @@ def plan_for(
                                    window_tiles=window_tiles)
     return MiningPlan(
         fn=fn, level=int(level), n_types=int(n_types),
-        cap=capacity_class(cap), batch=pow2_ceil(batch), engine=engine,
+        cap=capacity_class(cap), batch=pow2_ceil(batch),
+        streams=pow2_ceil(streams) if streams else 0, engine=engine,
         parallel_schedule=bool(parallel_schedule), block_next=bn,
         block_prev=bp, window_tiles=wt, chunk=ch)
 

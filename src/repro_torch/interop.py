@@ -3,17 +3,20 @@
 The miner has no weights; what crosses from the JAX package to the port is
 its data and state: an event stream, a built type index, candidate rows and
 their windows, the greedy ``(prev_end, prev_count)`` carries, and a miner
-config. Each function here takes numpy arrays (or anything ``np.asarray``
-reads) and returns the port's tensors or objects on ``device``, with the
-dtypes the port computes in. Nothing here imports the reference.
+config, or a corpus of streams. Each function here takes numpy arrays (or
+anything ``np.asarray`` reads) and returns the port's tensors or objects on
+``device``: the card unless the caller asks for the CPU, as every entry
+point of the port (``resolve_device`` raises without a card). Dtypes are
+the ones the port computes in. Nothing here imports the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import resolve_device
 from .core.events import EventStream
 from .core.mining import MinerConfig
 
@@ -24,16 +27,16 @@ from .core.mining import MinerConfig
 _DROPPED = ("interpret", "cap_occ", "max_window")
 #: reference MinerConfig fields of paths the port does not have yet: a
 #: set value is rejected, the default is dropped
-_UNPORTED = {"mesh": None, "min_streams": None, "shard_axis": "data",
-             "n_shards": None, "halo": 256}
+_UNPORTED = {"mesh": None, "shard_axis": "data", "n_shards": None,
+             "halo": 256}
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
     # a copy: arrays read from a jax array are not writable
-    return torch.tensor(np.asarray(x, dtype), device=device)
+    return torch.tensor(np.asarray(x, dtype), device=resolve_device(device))
 
 
-def stream(types, times, n_types: int, device="cpu") -> EventStream:
+def stream(types, times, n_types: int, device="cuda") -> EventStream:
     """An event stream ``(types i32[n], times f32[n], n_types)``."""
     return EventStream(
         _tensor(types, np.int32, device),
@@ -41,13 +44,25 @@ def stream(types, times, n_types: int, device="cpu") -> EventStream:
         int(n_types))
 
 
-def type_index(table, counts, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+def corpus(streams: Sequence[Any], device="cuda") -> List[EventStream]:
+    """A corpus: each stream given as an object with ``types``, ``times``
+    and ``n_types`` (the reference's ``EventStream``) or as a
+    ``(types, times, n_types)`` tuple."""
+    out = []
+    for s in streams:
+        types, times, n_types = (
+            s if isinstance(s, tuple) else (s.types, s.times, s.n_types))
+        out.append(stream(types, times, n_types, device))
+    return out
+
+
+def type_index(table, counts, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """A built type index ``(table f32[n_types, cap], counts i32[n_types])``."""
     return (_tensor(table, np.float32, device),
             _tensor(counts, np.int32, device))
 
 
-def candidates(symbols, t_low, t_high, device="cpu"):
+def candidates(symbols, t_low, t_high, device="cuda"):
     """Candidate rows and their windows: ``(symbols i32[B, N],
     t_low f32[B, N-1], t_high f32[B, N-1])``."""
     return (_tensor(symbols, np.int32, device),
@@ -55,18 +70,18 @@ def candidates(symbols, t_low, t_high, device="cpu"):
             _tensor(t_high, np.float32, device))
 
 
-def times_by_sym(times, device="cpu") -> torch.Tensor:
+def times_by_sym(times, device="cuda") -> torch.Tensor:
     """A gathered symbol-time table ``f32[..., N, cap]``."""
     return _tensor(times, np.float32, device)
 
 
-def carries(prev_end, prev_count, device="cpu"):
+def carries(prev_end, prev_count, device="cuda"):
     """The greedy chain state ``(prev_end f32[...], prev_count i32[...])``."""
     return (_tensor(prev_end, np.float32, device),
             _tensor(prev_count, np.int32, device))
 
 
-def miner_config(fields: Dict[str, Any], device="cpu") -> MinerConfig:
+def miner_config(fields: Dict[str, Any], device="cuda") -> MinerConfig:
     """The port's MinerConfig from ``dataclasses.asdict`` of the
     reference's, run on ``device``."""
     fields = dict(fields)
@@ -77,4 +92,4 @@ def miner_config(fields: Dict[str, Any], device="cpu") -> MinerConfig:
         if value != default:
             raise NotImplementedError(
                 f"MinerConfig.{name}={value!r}: that path is not ported yet")
-    return MinerConfig(**fields, device=device)
+    return MinerConfig(**fields, device=str(resolve_device(device)))

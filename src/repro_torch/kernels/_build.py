@@ -1,29 +1,35 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into a shared
-library with a plain C interface, at first use, into ``_build/`` beside
-this file (listed in ``.gitignore``). The library's name carries a hash of
-its source, so an edited source is rebuilt and a stale build is never
-loaded. Nothing is built or imported when this module is imported.
+Each ``csrc/<name>.cu`` file is compiled for Hopper (``sm_90a``) into a
+shared library with a plain C interface, at first use, into ``_build/``
+beside this file (listed in ``.gitignore``). The library's name carries a
+hash of its source and of every ``csrc`` header it includes, so an edited
+source or header is rebuilt and a stale build is never loaded.
+:func:`build_all` starts one ``nvcc`` per source at once. Nothing is built
+or imported when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
+#: every kernel source in ``csrc`` (one library each)
+KERNELS = ("count_batch", "track_batch", "track_level")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: ``nvcc``'s own report (registers, shared memory, spills) per source.
@@ -40,34 +46,62 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes with
+    quotes, transitively, in a fixed order."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives (hash of its source)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the build of ``csrc/<name>.cu`` lives (hash of its sources)."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu ({proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    BUILD_LOG[name] = proc.stdout + proc.stderr
-    os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
-    return out
+def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` that has no up-to-date build, one
+    ``nvcc`` process per source, all started together."""
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {name}.cu "
+                              f"({proc.returncode}):\n{log}")
+                continue
+            BUILD_LOG[name] = log
+            os.replace(tmp, todo[name])   # atomic: a loader sees all or nothing
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build_all((name,))[name]))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib

@@ -32,29 +32,14 @@
 // subtract is IEEE f32, so counts, end_out and n_superset equal the
 // reference bit for bit.
 
-#include <cuda_runtime.h>
+#include "track_common.cuh"
 
 namespace {
 
+using repro::neg_inf;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-// First index i in row[0, n) with row[i] >= x (searchsorted side='left').
-__device__ __forceinline__ int lower_bound(const float* __restrict__ row, int n,
-                                           float x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (row[mid] < x) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 // Inclusive block-wide prefix sum of x; *total gets the block's sum. Every
 // thread of the block must call it.
@@ -84,7 +69,8 @@ __device__ __forceinline__ int block_inclusive_scan(int x, int* warp_sums,
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads) count_batch_kernel(
+__global__ void __launch_bounds__(kThreads, repro::kBlocksPerSm)
+count_batch_kernel(
     const float* __restrict__ times,      // [B, N, cap] sorted, +inf padded
     const float* __restrict__ t_low,      // [B, N-1]
     const float* __restrict__ t_high,     // [B, N-1]
@@ -104,39 +90,20 @@ __global__ void __launch_bounds__(kThreads) count_batch_kernel(
   for (int b = blockIdx.x; b < batch; b += gridDim.x) {
     const float* rows = times + (size_t)b * n * cap;
     if (threadIdx.x == 0) nsup_total = 0;
-    int nsup = 0;
     // level 0: every finite first-symbol event seeds its own latest start
-    for (int i = threadIdx.x; i < cap; i += kThreads) nsup += isfinite(rows[i]);
+    int nsup = repro::count_finite_block<kThreads>(rows, cap);
 
     // --- tracking: v_{l+1}[i] = max{v_l[j] : t_{l+1}[i] - hi <= t_l[j] <
     // t_{l+1}[i] - lo}, -inf where the window is empty or t is not finite
-    float* vcur = buf0;
-    float* vnext = buf1;
+    float* vcur = nullptr;   // level 0 seeds from the prev times themselves
+    float* vnext = buf0;
     for (int l = 0; l < levels; ++l) {
-      const float* tp = rows + (size_t)l * cap;
-      const float* tn = rows + (size_t)(l + 1) * cap;
-      const float lo = t_low[(size_t)b * levels + l];
-      const float hi = t_high[(size_t)b * levels + l];
-      for (int i = threadIdx.x; i < cap; i += kThreads) {
-        const float t = tn[i];
-        float acc = neg_inf();
-        if (isfinite(t)) {
-          const float w_lo = t - hi;   // s >= t - hi
-          const float w_hi = t - lo;   // s <  t - lo
-          for (int j = lower_bound(tp, cap, w_lo); j < cap; ++j) {
-            const float s = tp[j];
-            if (!(s < w_hi)) break;
-            const float v = l == 0 ? (isfinite(s) ? s : neg_inf()) : vcur[j];
-            acc = fmaxf(acc, v);
-          }
-        }
-        vnext[i] = acc;
-        nsup += acc > neg_inf();
-      }
+      nsup += repro::track_level_block<kThreads>(
+          rows + (size_t)l * cap, vcur, rows + (size_t)(l + 1) * cap, vnext,
+          cap, t_low[(size_t)b * levels + l], t_high[(size_t)b * levels + l]);
       __syncthreads();
-      float* const tmp = vcur;
       vcur = vnext;
-      vnext = tmp;
+      vnext = vcur == buf0 ? buf1 : buf0;
     }
 
     // --- compaction (§IV-D count_scan_write): the k-th valid (start, end)
@@ -165,10 +132,7 @@ __global__ void __launch_bounds__(kThreads) count_batch_kernel(
     }
 
     // --- n_superset: block sum of the per-thread partial counts
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) nsup += __shfl_down_sync(0xffffffffu, nsup, o);
-    if ((threadIdx.x & 31) == 0) atomicAdd(&nsup_total, nsup);
-    __syncthreads();
+    repro::block_sum(nsup, &nsup_total);
 
     // --- greedy fold over the compacted prefix, in end order
     if (threadIdx.x == 0) {
@@ -204,10 +168,6 @@ int repro_count_batch(const float* times, const float* t_low, const float* t_hig
         scratch, batch, n, cap);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -84,8 +84,9 @@ def _reference(ref, times, lo, hi, pe, pc, window_tiles=0):
 
 def _port(times, lo, hi, pe, pc, window_tiles=0, chunk=8):
     out = p_ops.count_batch(
-        interop.times_by_sym(times), *interop.candidates(lo, lo, hi)[1:],
-        *interop.carries(pe, pc), block_next=BLOCK, block_prev=BLOCK,
+        interop.times_by_sym(times, "cpu"),
+        *interop.candidates(lo, lo, hi, "cpu")[1:],
+        *interop.carries(pe, pc, "cpu"), block_next=BLOCK, block_prev=BLOCK,
         window_tiles=window_tiles, chunk=chunk)
     return [x.numpy() for x in out]
 
@@ -123,8 +124,9 @@ def test_count_batch_ref_equals_wrapper_on_cpu():
     case = _batch(4, 6, 3, 64, grid=True)
     want = _port(*case)
     got = p_et.count_batch_ref(
-        interop.times_by_sym(case[0]), *interop.candidates(
-            case[1], case[1], case[2])[1:], *interop.carries(case[3], case[4]))
+        interop.times_by_sym(case[0], "cpu"), *interop.candidates(
+            case[1], case[1], case[2], "cpu")[1:],
+        *interop.carries(case[3], case[4], "cpu"))
     for w, g in zip(want[:3], got):
         np.testing.assert_array_equal(g.numpy(), w)
 
@@ -169,8 +171,9 @@ def test_window_scan_table_matches_reference(ref):
     for wt in (0, 1, 2):
         want = ref.ops.window_scan_table(
             ref.jnp.asarray(times), ref.jnp.asarray(hi), 8, 16, wt)
-        got = p_ops.window_scan_table(interop.times_by_sym(times),
-                                      interop.times_by_sym(hi), 8, 16, wt)
+        got = p_ops.window_scan_table(interop.times_by_sym(times, "cpu"),
+                                      interop.times_by_sym(hi, "cpu"), 8, 16,
+                                      wt)
         for w, g in zip(want, got):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert p_ops.tile_geometry(130, 32, 48) == ref.ops.tile_geometry(130, 32, 48)
@@ -192,7 +195,7 @@ def test_track_dense_matches_reference(ref):
     times, lo, hi, _, _ = _batch(10, 5, 4, 48, grid=True)
     occ_ref = ref.jax.jit(ref.jax.vmap(ref.tracking.track_dense))(times, lo, hi)
     want = [[np.asarray(x[i]) for x in occ_ref] for i in range(len(times))]
-    occ = p_tracking.track_dense(*(interop.times_by_sym(x)
+    occ = p_tracking.track_dense(*(interop.times_by_sym(x, "cpu")
                                    for x in (times, lo, hi)))
     for i, w in enumerate(want):
         for name, wv, gv in zip(occ._fields, w, occ):
@@ -214,7 +217,7 @@ def test_schedulers_match_reference(ref, parallel):
         torch.as_tensor(starts), torch.as_tensor(ends),
         torch.as_tensor(valid), None, None)
     got_e, got_c = p_scheduling.greedy_state(
-        occ, *interop.carries(pe, pc), parallel=parallel)
+        occ, *interop.carries(pe, pc, "cpu"), parallel=parallel)
     want_e, want_c = ref.jax.jit(
         ref.counting._greedy_batch_state, static_argnums=3)(
         ref.tracking.Occurrences(starts, ends, valid, None, None), pe, pc,
@@ -241,18 +244,27 @@ def test_count_batch_dispatch_matches_reference(dispatch_case, engine,
                                                 parallel_schedule):
     (times, lo, hi, pe, pc), want = dispatch_case
     got = p_counting.count_batch_dispatch(
-        engine, *(interop.times_by_sym(x) for x in (times, lo, hi)),
-        *interop.carries(pe, pc), p_tracking.EngineConfig(),
+        engine, *(interop.times_by_sym(x, "cpu") for x in (times, lo, hi)),
+        *interop.carries(pe, pc, "cpu"), p_tracking.EngineConfig(),
         parallel_schedule=parallel_schedule)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
 def test_fused_engine_track_names_its_slice():
+    """The fused engine's tracking entries are the port of
+    track_batch_pallas (tests/test_torch_tracking.py holds them to the
+    reference); here: they run, and give the plain tracking."""
+    times, lo, hi, _, _ = _batch(13, 4, 3, 64, grid=True)
+    t, lo, hi = (interop.times_by_sym(x, "cpu") for x in (times, lo, hi))
     eng = p_tracking.get_engine("dense_pallas_fused")
-    for fn in (eng.track, eng.track_batch, eng.track_corpus):
-        with pytest.raises(NotImplementedError, match="track_batch_pallas"):
-            fn(None, None, None, p_tracking.EngineConfig())
+    cfg = p_tracking.EngineConfig()
+    want = p_tracking.track_dense(t, lo, hi)
+    got = [eng.track(t, lo, hi, cfg), eng.track_batch(t, lo, hi, cfg),
+           eng.track_corpus(t[None], lo, hi, cfg)]
+    for occ in got:
+        for name, w, g in zip(want._fields, want, occ):
+            assert torch.equal(g.reshape(w.shape), w), name
 
 
 # ---------------------------------------------------------------------------

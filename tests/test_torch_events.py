@@ -34,7 +34,7 @@ def _stream(seed, n, n_types, *, pad=0, max_gap=5):
 
 def _both_type_index(types, times, n_types, cap):
     r_table, r_counts = r_events.type_index(types, times, n_types, cap)
-    s = interop.stream(types, times, n_types)
+    s = interop.stream(types, times, n_types, "cpu")
     p_table, p_counts = p_events.type_index(s.types, s.times, n_types, cap)
     return (np.asarray(r_table), np.asarray(r_counts),
             p_table.numpy(), p_counts.numpy())
@@ -66,7 +66,7 @@ def test_type_index_all_padding_and_out_of_range_types():
 
 
 def test_type_index_rejects_cap_below_one():
-    s = interop.stream(*_stream(5, 10, 3), 3)
+    s = interop.stream(*_stream(5, 10, 3), 3, "cpu")
     with pytest.raises(ValueError, match="cap must be >= 1"):
         p_events.type_index(s.types, s.times, 3, 0)
 
@@ -81,7 +81,7 @@ def test_rank_within_type_matches_reference():
 def test_episode_symbol_times_matches_reference():
     types, times = _stream(7, 90, 4)
     r_table, r_counts = r_events.type_index(types, times, 4, 64)
-    p_table, p_counts = interop.type_index(r_table, r_counts)
+    p_table, p_counts = interop.type_index(r_table, r_counts, "cpu")
     sym = [2, 0, 2, 3]
     want_t, want_c = r_events.episode_symbol_times(r_table, r_counts, sym)
     got_t, got_c = p_events.episode_symbol_times(p_table, p_counts, sym)
@@ -92,7 +92,7 @@ def test_episode_symbol_times_matches_reference():
 def test_episode_as_arrays_casts_windows_to_float32():
     kw = dict(symbols=(0, 1, 2), t_low=(0.1, 0.0), t_high=(0.3000001, 1e-3))
     want = [np.asarray(x) for x in r_episodes.Episode(**kw).as_arrays()]
-    got = [x.numpy() for x in p_episodes.Episode(**kw).as_arrays()]
+    got = [x.numpy() for x in p_episodes.Episode(**kw).as_arrays("cpu")]
     for w, g in zip(want, got):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
@@ -101,7 +101,7 @@ def test_episode_as_arrays_casts_windows_to_float32():
     p_eps = p_episodes.episodes_from_rows(rows, 0.1, 0.5)
     assert [str(e) for e in p_eps] == [str(e) for e in r_eps]
     want = [np.asarray(x) for x in r_episodes.episode_batch(r_eps)]
-    got = [x.numpy() for x in p_episodes.episode_batch(p_eps)]
+    got = [x.numpy() for x in p_episodes.episode_batch(p_eps, "cpu")]
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
     with pytest.raises(ValueError):
@@ -115,7 +115,7 @@ def test_restrict_seed_row_matches_reference(t_min):
     times[1, 0, 9:] = np.inf
     want = np.asarray(r_tracking.restrict_seed_row(times, t_min))
     got = p_tracking.restrict_seed_row(
-        interop.times_by_sym(times), t_min).numpy()
+        interop.times_by_sym(times, "cpu"), t_min).numpy()
     np.testing.assert_array_equal(got, want)
 
 

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.core import counting, mining
-from repro_torch.core.episodes import serial
+from repro_torch import interop, resolve_device
+from repro_torch.core import corpus, counting, mining
+from repro_torch.core.episodes import episode_batch, serial
 from repro_torch.core.events import EventStream
 
 REPO = Path(__file__).resolve().parent.parent
@@ -40,8 +40,8 @@ def test_port_files_import_neither_jax_nor_reference(path):
 
 
 def test_importing_the_miner_loads_no_jax():
-    code = ("import sys, repro_torch.core.mining, repro_torch.interop, "
-            "repro_torch.data; "
+    code = ("import sys, repro_torch.core.mining, repro_torch.core.corpus, "
+            "repro_torch.kernels.ops, repro_torch.interop, repro_torch.data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
@@ -63,6 +63,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
         counting.count_nonoverlapped(stream, serial([0, 1], 0.0, 1.0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        corpus.mine_corpus([stream, stream], cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        counting.count_corpus_indexed(
+            np.full((1, 2, 4), np.inf, np.float32), np.zeros((1, 2), np.int32),
+            np.zeros((1, 2), np.int32), np.zeros((1, 1), np.float32),
+            np.ones((1, 1), np.float32), np.ones(1, np.int32))
+    ep = serial([0, 1], 0.0, 1.0)
+    for call in (lambda: ep.as_arrays(), lambda: episode_batch([ep]),
+                 lambda: interop.stream([0], [0.0], 1),
+                 lambda: interop.corpus([([0], [0.0], 1)]),
+                 lambda: interop.times_by_sym(np.zeros((1, 2, 3))),
+                 lambda: interop.miner_config(dict(t_low=0.0, t_high=1.0,
+                                                   threshold=1))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     # asked for, the CPU runs
     cfg.device = "cpu"
     assert mining.mine_arrays(stream, cfg)[2].counts.tolist() == [1, 1, 1]
+    assert [r[2].counts.tolist() for r in corpus.mine_corpus(
+        [stream, stream], cfg).per_stream] == [[1, 1, 1]] * 2

@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import counting as r_counting
 from repro.core import events as r_events
@@ -25,7 +26,7 @@ from repro_torch.core import mining as p_mining
 from repro_torch.core.episodes import serial as p_serial
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "golden_stream.npz"
-ENGINES = ("dense", "dense_pallas_fused")
+ENGINES = ("dense", "dense_pallas", "dense_pallas_fused")
 
 
 def _grid_stream(seed, n, n_types):
@@ -104,7 +105,8 @@ def test_mine_arrays_matches_reference(reference_runs, case, engine):
     (types, times, n_types), r_cfg, want = reference_runs[case]
     cfg = interop.miner_config(dataclasses.asdict(r_cfg), device="cpu")
     cfg.engine = engine
-    got = p_mining.mine_arrays(interop.stream(types, times, n_types), cfg)
+    got = p_mining.mine_arrays(interop.stream(types, times, n_types, "cpu"),
+                               cfg)
     _assert_levels_equal(got, want)
 
 
@@ -112,7 +114,7 @@ def test_mine_arrays_recovers_golden_fixture():
     (types, times, n_types), kw = _golden()
     d = np.load(GOLDEN)
     got = p_mining.mine_arrays(
-        interop.stream(types, times, n_types),
+        interop.stream(types, times, n_types, "cpu"),
         p_mining.MinerConfig(**kw, engine="dense_pallas_fused", device="cpu"))
     assert sorted(got) == [int(x) for x in d["levels"]]
     for level in got:
@@ -126,7 +128,7 @@ def test_mine_episode_api_matches_reference(reference_runs):
     (types, times, n_types), r_cfg, _ = reference_runs["quickstart"]
     want = r_mining.mine(r_events.EventStream(types, times, n_types), r_cfg)
     cfg = interop.miner_config(dataclasses.asdict(r_cfg), device="cpu")
-    got = p_mining.mine(interop.stream(types, times, n_types), cfg)
+    got = p_mining.mine(interop.stream(types, times, n_types, "cpu"), cfg)
     assert sorted(got) == sorted(want)
     for level in want:
         assert ([str(e) for e in got[level].episodes]
@@ -171,15 +173,15 @@ def test_count_batch_indexed_build_cap_overflow_matches_reference():
         want = r_counting.count_batch_indexed(
             r_table, r_counts, sym, lo, hi, build_cap=build_cap)
         got = p_counting.count_batch_indexed(
-            *interop.type_index(r_table, r_counts),
-            *interop.candidates(sym, lo, hi), build_cap=build_cap,
+            *interop.type_index(r_table, r_counts, "cpu"),
+            *interop.candidates(sym, lo, hi, "cpu"), build_cap=build_cap,
             engine="dense_pallas_fused", device="cpu")
         for w, g in zip(want, got):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert bool(got[2].all()) is False and bool(
         p_counting.count_batch_indexed(
-            *interop.type_index(r_table, r_counts),
-            *interop.candidates(sym, lo, hi), build_cap=24,
+            *interop.type_index(r_table, r_counts, "cpu"),
+            *interop.candidates(sym, lo, hi, "cpu"), build_cap=24,
             device="cpu")[2].all())
 
 
@@ -198,7 +200,7 @@ def nonoverlapped_case():
 @pytest.mark.parametrize("engine", ENGINES)
 def test_count_nonoverlapped_matches_reference(nonoverlapped_case, engine):
     (types, times, n_types), want = nonoverlapped_case
-    p_stream = interop.stream(types, times, n_types)
+    p_stream = interop.stream(types, times, n_types, "cpu")
     for (symbols, lo, hi), w in zip(_EPISODES, want):
         got = p_counting.count_nonoverlapped(
             p_stream, p_serial(symbols, lo, hi), engine=engine, device="cpu")
@@ -215,19 +217,26 @@ def test_count_candidates_matches_reference():
         r_events.EventStream(types, times, n_types), eps,
         r_mining.MinerConfig(**kw))
     got = p_mining.count_candidates(
-        interop.stream(types, times, n_types),
+        interop.stream(types, times, n_types, "cpu"),
         [p_serial(e.symbols, 0.25, 1.0) for e in eps],
         p_mining.MinerConfig(**kw, engine="dense_pallas_fused", device="cpu"))
     np.testing.assert_array_equal(got, want)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
     cfg = r_mining.MinerConfig(t_low=0.0, t_high=1.0, threshold=1)
     fields = dataclasses.asdict(cfg)
-    assert interop.miner_config(fields).device == "cpu"
+    # the card by default: raises without one, "cuda" with one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.miner_config(fields)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert interop.miner_config(fields).device == "cuda"
+    monkeypatch.undo()
+    assert interop.miner_config(fields, device="cpu").device == "cpu"
     with pytest.raises(NotImplementedError, match="halo"):
-        interop.miner_config({**fields, "halo": 64})
-    stream = interop.stream(*_grid_stream(5, 20, 2))
+        interop.miner_config({**fields, "halo": 64}, device="cpu")
+    stream = interop.stream(*_grid_stream(5, 20, 2), "cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         p_mining.mine_arrays(stream, p_mining.MinerConfig(
             t_low=0.0, t_high=1.0, threshold=1, device="cpu", mesh=object()))
