@@ -1,9 +1,10 @@
 """Carry the reference's state, as numpy, into the port.
 
-The miner has no weights; what crosses from the JAX package to the port is
-its data and state: an event stream, a built type index, candidate rows and
-their windows, the greedy ``(prev_end, prev_count)`` carries, and a miner
-config, or a corpus of streams. Each function here takes numpy arrays (or
+For the miner, what crosses from the JAX package to the port is its data
+and state: an event stream, a built type index, candidate rows and their
+windows, the greedy ``(prev_end, prev_count)`` carries, and a miner
+config, or a corpus of streams. For the language models it is an arch
+config and a parameter pytree. Each function here takes numpy arrays (or
 anything ``np.asarray`` reads) and returns the port's tensors or objects on
 ``device``: the card unless the caller asks for the CPU, as every entry
 point of the port (``resolve_device`` raises without a card). Dtypes are
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .configs.base import ArchConfig, MoECfg
 from .core.events import EventStream
 from .core.mining import MinerConfig
 
@@ -93,3 +95,44 @@ def miner_config(fields: Dict[str, Any], device="cuda") -> MinerConfig:
             raise NotImplementedError(
                 f"MinerConfig.{name}={value!r}: that path is not ported yet")
     return MinerConfig(**fields, device=str(resolve_device(device)))
+
+
+def arch_config(fields: Dict[str, Any]) -> ArchConfig:
+    """The port's ArchConfig from ``dataclasses.asdict`` of the
+    reference's."""
+    fields = dict(fields)
+    if isinstance(fields.get("moe"), dict):
+        fields["moe"] = MoECfg(**fields["moe"])
+    return ArchConfig(**fields)
+
+
+def lm_params(cfg: ArchConfig, params: Dict[str, Any],
+              device="cuda") -> Dict[str, torch.Tensor]:
+    """The port ``Model``'s state dict (for ``load_state_dict``) from the
+    reference's parameter pytree, given as nested dicts and lists of numpy
+    arrays: ``stack.scan[pos]`` holds the layers ``pos, pos + P, ...`` of a
+    ``P``-kind block pattern stacked on a leading axis, ``stack.tail`` the
+    layers after the last whole pattern."""
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(prefix: str, tree, index=None) -> None:
+        if isinstance(tree, dict):
+            for name, sub in tree.items():
+                put(f"{prefix}.{name}", sub, index)
+            return
+        leaf = np.asarray(tree, np.float32)
+        out[prefix] = torch.tensor(leaf if index is None else leaf[index],
+                                   device=dev)
+
+    for name in ("embed", "final_norm", "lm_head"):
+        if name in params:
+            put(name, params[name])
+    period = len(cfg.block_pattern)
+    n_super = cfg.n_layers // period
+    for pos, stacked in enumerate(params["stack"]["scan"]):
+        for i in range(n_super):
+            put(f"layers.{i * period + pos}", stacked, i)
+    for i, tail in enumerate(params["stack"]["tail"]):
+        put(f"layers.{n_super * period + i}", tail)
+    return out

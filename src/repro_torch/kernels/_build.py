@@ -23,7 +23,8 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 #: every kernel source in ``csrc`` (one library each)
-KERNELS = ("count_batch", "track_batch", "track_level")
+KERNELS = ("count_batch", "track_batch", "track_level", "flash_attention",
+           "wkv_chunk")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -105,3 +106,20 @@ def load(name: str) -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def call(name: str, argtypes: Sequence, *args) -> None:
+    """Call ``repro_<name>`` of ``csrc/<name>.cu``, whose ctypes argument
+    types are ``argtypes`` (the stream last), and raise if it returns a
+    CUDA error (a refused launch never runs, and a later synchronize does
+    not report it)."""
+    lib = load(name)
+    fn = getattr(lib, f"repro_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{lib.repro_cuda_error_string(err).decode()} ({err})")

@@ -108,17 +108,8 @@ def count_batch_ref(
 def _launch(name: str, n_ptr: int, n_int: int, *args) -> None:
     """Call ``repro_<name>`` of ``csrc/<name>.cu`` (``n_ptr`` pointers,
     ``n_int`` ints, then the stream) and raise if the launch failed."""
-    lib = _build.load(name)
-    fn = getattr(lib, f"repro_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(
-            f"{name} kernel launch failed: "
-            f"{lib.repro_cuda_error_string(err).decode()} ({err})")
+    _build.call(name, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                + [ctypes.c_void_p], *args)
 
 
 def _grid_rows(device, rows: int) -> int:

@@ -15,6 +15,9 @@ from repro_torch import interop, resolve_device
 from repro_torch.core import corpus, counting, mining
 from repro_torch.core.episodes import episode_batch, serial
 from repro_torch.core.events import EventStream
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch import serve
+from repro_torch.models import Model
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -41,7 +44,10 @@ def test_port_files_import_neither_jax_nor_reference(path):
 
 def test_importing_the_miner_loads_no_jax():
     code = ("import sys, repro_torch.core.mining, repro_torch.core.corpus, "
-            "repro_torch.kernels.ops, repro_torch.interop, repro_torch.data; "
+            "repro_torch.kernels.ops, repro_torch.interop, repro_torch.data, "
+            "repro_torch.models.model, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.wkv_chunk; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
@@ -79,8 +85,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                                    threshold=1))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    cfg_lm = reduced(get_config("qwen3-0.6b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg_lm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.lm_params(cfg_lm, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced"])
     # asked for, the CPU runs
     cfg.device = "cpu"
     assert mining.mine_arrays(stream, cfg)[2].counts.tolist() == [1, 1, 1]
     assert [r[2].counts.tolist() for r in corpus.mine_corpus(
         [stream, stream], cfg).per_stream] == [[1, 1, 1]] * 2
+    assert Model(cfg_lm, device="cpu").embed.table.device.type == "cpu"
